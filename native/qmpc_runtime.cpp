@@ -1,4 +1,4 @@
-// qmpc_runtime — native host-side runtime for the TPU quaternion-MPC stack.
+// qmpc_runtime — native host-side runtime for the quaternion-MPC stack.
 //
 // Role parity with the reference's C++ runtime layer:
 //  - RateLoop: absolute-deadline periodic executor with optional SCHED_FIFO,

@@ -187,7 +187,7 @@ def build_problem(
 
 
 # ---------------------------------------------------------------------------
-# Fleet-native (batch-last) path — the TPU throughput path (solver/fleet.py)
+# Fleet-native (batch-last) path — the fleet throughput path (solver/fleet.py)
 # ---------------------------------------------------------------------------
 
 
@@ -195,7 +195,7 @@ def build_fleet_problem(fbk, cmd, wts, horizon: int, zero_initial_omega: bool = 
     """Batch-first (fbk, cmd, wts) pytrees -> batch-last FleetProblem.
 
     The transposes happen once at the solve boundary; everything inside the
-    solver then runs with the scenario batch in the TPU lane dimension.
+    solver then runs with the scenario batch as the last (minor) axis.
     """
     import jax
 
@@ -244,12 +244,11 @@ def _fleet_spec():
             integrator="midpoint",
             edj=quat_srb_error_discrete_jac_fleet,
             # edj_blocks (quat_srb_edj_blocks) deliberately NOT wired:
-            # measured r5 on v5e B=16384 — writing the sweep's Q-terms
-            # against the block sparsity (fleet._structured_q_terms) ran
-            # 191 ms vs 169 ms for dense bmm over the structured-edj Ae/Be:
-            # the 4-piece concat/tile assembly materializes more slabs than
-            # the fused dense reduce_sum chain moves. Kept as the blueprint
-            # for an in-VMEM fused kernel, where assembly is free.
+            # writing the sweep's Q-terms against the block sparsity
+            # (fleet._structured_q_terms) needs a 4-piece concat/tile
+            # assembly that materialises more slabs than the fused dense
+            # reduce_sum chain over the structured-edj Ae/Be moves. Whether
+            # that holds on the H100 is unmeasured.
         )
     return FLEET_MODEL_SPEC
 

@@ -1,6 +1,6 @@
 """Contact-aided EKF: IMU propagation + leg odometry + optional mocap update.
 
-TPU-native equivalent of the reference's CasADi-codegen estimator submodule
+The equivalent of the reference's CasADi-codegen estimator submodule
 (``ShuoYangRobotics/legged-kalman-filter`` via ``.gitmodules:1-3``; consumed
 through ``A1SensorData``/``A1KFCombineLOWithFootTerrain`` at
 ``BaseInterface.cpp:52-68, 302-338`` and mocap inputs at

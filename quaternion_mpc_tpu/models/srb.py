@@ -30,7 +30,6 @@ import numpy as np
 from quaternion_mpc_tpu.ops import lie
 
 GRAVITY = 9.81
-_PRECISION = jax.lax.Precision.HIGHEST  # keep fleet contractions in full f32 on TPU
 
 
 class SrbParams(NamedTuple):
@@ -186,7 +185,7 @@ def euler_srb_dynamics(x: jnp.ndarray, u: jnp.ndarray, p: SrbParams) -> jnp.ndar
 # Fleet-native (batch-last) quaternion SRB: x (13, B), u (3·n_feet, B).
 # Params broadcast on a trailing batch axis: foot_pos (n_feet, 3, B|1),
 # inertia (3, 3, B|1), mass (B|1,), com_offset (3, B|1), rot (3, 3, B|1).
-# See solver/fleet.py for why batch-last is the TPU-native layout.
+# See solver/fleet.py for why the fleet solver is batch-last.
 # ---------------------------------------------------------------------------
 
 
@@ -253,7 +252,7 @@ def quat_srb_dynamics_fleet(x: jnp.ndarray, u: jnp.ndarray, p: SrbParams) -> jnp
     omega = x[10:13]
     n_feet = p.foot_pos.shape[0]
 
-    # g_body = Rᵀ g_world = -G·(row 2 of R); mul+sum form fuses on the VPU
+    # g_body = Rᵀ g_world = -G·(row 2 of R); mul+sum form fuses
     g_body = -GRAVITY * p.rot_body_to_world[2]
 
     forces = u.reshape(n_feet, 3, -1)
@@ -272,9 +271,8 @@ def quat_srb_jacobian_fleet(x: jnp.ndarray, u: jnp.ndarray, p: SrbParams) -> jnp
     """Batch-last analytic Jacobian (13, 13+3·n_feet, B).
 
     Assembled scatter-free: every block is built by stack/concat of
-    elementwise (B,)-vectors, so XLA lowers it to fused VPU work instead of
-    TPU scatter ops (integer-array `.at[].set` lowers to scatter, which
-    serializes and costs ~ms at fleet batch sizes).
+    elementwise (B,)-vectors, so XLA lowers it to fused elementwise work
+    instead of scatter ops (integer-array `.at[].set` lowers to scatter).
     """
     del u
     B = x.shape[-1]
@@ -290,7 +288,7 @@ def quat_srb_jacobian_fleet(x: jnp.ndarray, u: jnp.ndarray, p: SrbParams) -> jnp
     def bcast(a, *shape):
         return jnp.broadcast_to(a, shape + (B,))
 
-    # iota-built identity: Pallas kernels may not close over array constants
+    # iota-built identity, constant-folded by XLA
     r3 = jax.lax.broadcasted_iota(jnp.int32, (3, 3), 0)
     c3 = jax.lax.broadcasted_iota(jnp.int32, (3, 3), 1)
     eye3 = (r3 == c3).astype(dtype)[..., None]  # (3, 3, 1)
@@ -360,9 +358,9 @@ def quat_srb_error_discrete_jac_fleet(x, x1, u, p: SrbParams, h):
     and B is state-independent. The dense path builds two (13, 13+nu, B)
     Jacobians, two (13, 12, B) E-projections, and three 13-wide
     contractions per knot (~8k flops, ~10 slab materializations); the
-    block form is ~600 flops on 4×4/4×3 tiles. Measured at fleet batch
-    sizes the backward pass is HBM-bound (bench roofline), so the cut in
-    materialized intermediates is the point.
+    block form is ~600 flops on 4×4/4×3 tiles. At fleet batch sizes the
+    cut in materialized intermediates (device-memory traffic) is the
+    point.
 
     Derivation (midpoint, Ad = I + h·Am + ½h²·Am·A):
       Am·A rows 3:7 are the only nonzero rows: [½Rw_m·½Rw  at cols 3:7,

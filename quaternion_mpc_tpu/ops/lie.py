@@ -2,7 +2,7 @@
 
 Scalar-first convention ``q = [w, x, y, z]``. Every function broadcasts over
 arbitrary leading batch axes and preserves the input dtype, so the same code
-runs in f64 (fixture verification on CPU) and f32/bf16 (TPU speed path).
+runs in f64 (fixture verification) and f32/bf16 (the speed path).
 
 Semantics mirror the reference stack's hand-rolled quaternion algebra
 (``legged_ctrl/src/utils/QuaternionUtils.cpp:10-53`` — cayley/inv-cayley maps,

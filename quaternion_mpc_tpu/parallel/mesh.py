@@ -1,11 +1,11 @@
 """Scenario-fleet parallelism: mesh construction, sharding, fleet collectives.
 
 The reference's "distribution" is ROS pub/sub + one mutex (SURVEY.md §2.3);
-the TPU-native equivalent is a scenario-sharded device mesh: thousands of
-randomized Go1 scenarios vmapped per chip and sharded over the ('scenario',)
-mesh axis with `shard_map`, metrics reduced on-device with `psum` over ICI
-before any host transfer. Multi-host: same code — `jax.distributed` +
-a (hosts × chips) mesh flattened into the scenario axis.
+here it is a scenario-sharded device mesh: thousands of randomized Go1
+scenarios per device, sharded over the flat ('scenario',) mesh axis with
+`shard_map`, metrics reduced on-device with `psum` across devices before any
+host transfer. Multi-host: same code — `jax.distributed` + every device of
+every host flattened into the scenario axis.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def fleet_map(step_fn: Callable, mesh: Mesh, *, has_metrics: bool = True):
     step_fn: (carry, inputs) -> (carry, metrics) for ONE scenario.
     Returns fleet_fn operating on batch-leading pytrees sharded over the
     scenario axis. Per-shard work is vmapped; scalar metrics are psum-reduced
-    over ICI inside the shard_map (no host round trip), so the returned
+    across devices inside the shard_map (no host round trip), so the returned
     metrics are fleet totals replicated on every device.
     """
     vstep = jax.vmap(step_fn)
@@ -73,17 +73,17 @@ def fleet_map(step_fn: Callable, mesh: Mesh, *, has_metrics: bool = True):
 def fleet_shard(fleet_step: Callable, mesh: Mesh, *, reduce_metrics: bool = True):
     """Shard a FLEET-native (batch-leading) step over the scenario mesh axis.
 
-    This is the fast multi-chip path: `fleet_step` is one of
+    This is the multi-device fleet path: `fleet_step` is one of
     ``runtime.step.make_fleet_*`` — batch-leading (carry, sp, joy) pytrees
-    with the batch-LAST fleet solver underneath (solver/fleet.py, the ~8-28×
-    faster TPU layout). Each device runs the whole fleet step on its local
-    scenario shard (transposing to batch-last inside the shard), so the lane
-    axis stays dense per chip; per-scenario metrics are psum-reduced to
-    fleet totals over ICI (replicated on every device) unless
-    ``reduce_metrics=False`` (then metrics stay per-scenario, sharded).
+    with the batch-LAST fleet solver underneath (solver/fleet.py). Each
+    device runs the whole fleet step on its local scenario shard
+    (transposing to batch-last inside the shard); per-scenario metrics are
+    psum-reduced to fleet totals across devices (replicated on every device)
+    unless ``reduce_metrics=False`` (then metrics stay per-scenario,
+    sharded).
 
     Contrast `fleet_map`, which lifts a PER-SCENARIO step via vmap — correct
-    but leaves dim-13 state vectors in the lane axis (≈10× padding).
+    but keeps the batch-leading layout the fleet solver avoids.
     """
     metrics_spec = P() if reduce_metrics else P(SCENARIO_AXIS)
 

@@ -1,14 +1,16 @@
 """ctypes bindings for the native host runtime (native/qmpc_runtime.cpp).
 
-The TPU does the solves; this layer is the deployment-side real-time plumbing
-the reference implements in C++ (Main.cpp rate loops, the LeggedState mutex
-— here a seqlock — and the Unitree UDP bridge). Built on demand with the
-in-tree Makefile (g++ only, no external deps).
+The accelerator does the solves; this layer is the deployment-side real-time
+plumbing the reference implements in C++ (Main.cpp rate loops, the
+LeggedState mutex — here a seqlock — and the Unitree UDP bridge). Built from
+the committed source with the in-tree Makefile (g++ only, no external deps)
+on first use in each process.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import pathlib
 import subprocess
@@ -19,9 +21,15 @@ _LIB_PATH = _NATIVE_DIR / "libqmpc_runtime.so"
 _lib: Optional[ctypes.CDLL] = None
 
 
-def build(force: bool = False) -> pathlib.Path:
-    if force or not _LIB_PATH.exists():
-        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True, capture_output=True)
+def build() -> pathlib.Path:
+    """Run `make` (a no-op when the library is newer than its source), so a
+    stale library is never loaded. A lock file serialises concurrent builds
+    from several processes of one checkout."""
+    with open(_NATIVE_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        subprocess.run(
+            ["make", "-C", str(_NATIVE_DIR)], check=True, capture_output=True
+        )
     return _LIB_PATH
 
 

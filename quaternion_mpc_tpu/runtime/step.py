@@ -1433,8 +1433,8 @@ def make_fleet_standing_step(
     controller: str = "quat",
 ):
     """Fleet-native standing step: batch-LEADING (carry, sp, joy) pytrees,
-    but the MPC solve runs through the batch-last fleet solver (the ~8x
-    faster TPU layout) instead of vmapping the per-scenario solver. The
+    but the MPC solve runs through the batch-last fleet solver instead of
+    vmapping the per-scenario solver. The
     goal/plant/safety stages stay vmapped per-scenario functions, so the
     behavior matches `vmap(make_standing_step(...))` exactly up to solver
     fp ordering (same corrected zero_initial_omega=False default)."""

@@ -7,7 +7,7 @@ error-state iLQR/Riccati inner loop, with quaternion states handled on the
 Cayley chart ("Planning with Attitude" machinery; the reference exposes the
 projection matrices in ``AltroUtils.cpp:128-221``).
 
-TPU-first design decisions (SURVEY.md §7 "hard parts"):
+Design decisions for batched accelerators (SURVEY.md §7 "hard parts"):
 - batch-uniform control flow: fixed AL/iLQR iteration counts with masked
   early-exit, `lax.scan` Riccati sweeps, `lax.while_loop` backtracking
   line search — all vmappable over a scenario batch axis;

@@ -1,16 +1,16 @@
-"""Fleet-native AL-iLQR: the same algorithm as `al_ilqr`, restructured for
-TPU memory layout — every array carries the scenario batch as its LAST axis.
+"""Fleet-native AL-iLQR: the same algorithm as `al_ilqr`, restructured so
+that every array carries the scenario batch as its LAST axis.
 
-Why: under `jax.vmap` the batch leads, so a (B, 13) state puts dim-13 into
-the 128-lane minor axis (10× padding) and B into sublanes; every tiny-matrix
-op in the Riccati recursion then moves ~90% padding. With batch-last, (13, B)
-puts B in lanes and the matrix dims in sublanes: 12×12 matmuls become
-lane-parallel VPU work at full utilization. Measured on v5e: ~28× faster than
-the vmapped batch-first solver at B=4096 (see bench.py history).
+Why: under `jax.vmap` the batch leads, so a (B, 13) state puts the tiny
+matrix dims in the minor (contiguous) axis and every op in the Riccati
+recursion works on 12- and 13-wide rows. With batch-last, (13, B), the
+contiguous axis is the batch: each tiny-matrix product becomes elementwise
+work over B scenarios at once. Whether this layout is the right one for the
+H100 is unmeasured.
 
 The linear algebra on (n, n, B) stacks (matmul, Cholesky, triangular solve)
 is unrolled over the static tiny dims — XLA fuses the scalar-chain into a
-few lane-parallel kernels. Shapes:
+few batch-parallel kernels. Shapes:
 
     xs (N+1, nx, B)   us (N, nu, B)   As (N, ne, ne, B)   Ks (N, nu, ne, B)
 
@@ -35,11 +35,11 @@ from quaternion_mpc_tpu.solver.problem import SolverOptions
 
 # Tiny-matrix contractions as broadcast-multiply + sum, NOT einsum/dot:
 # dot_general on batch-trailing (n, k, B) stacks compiles to standalone
-# tiny-MXU kernels that cannot fuse with neighbors (measured ~100 us/bmm),
-# while the mul+sum form is pure elementwise+reduce that XLA fuses across
-# the whole backward pass (measured: a fused chain of 100 runs at the
-# dispatch floor, i.e. <10 us/bmm). Also keeps full f32 on the VPU — the
-# MXU path's bf16 passes degraded AL-iLQR convergence (cost 2.20 vs 0.42).
+# matrix-unit kernels that cannot fuse with their neighbours, while the
+# mul+sum form is elementwise+reduce that XLA fuses across the whole
+# backward pass. It is full f32 whatever the matmul precision (the package
+# pins HIGHEST anyway: reduced-precision products degrade AL-iLQR
+# convergence). Whether dot_general fuses better on the H100 is unmeasured.
 
 
 def bmm(A, B):
@@ -53,15 +53,8 @@ def bmv(A, x):
 
 
 def bt(A):
-    """Transpose the matrix dims of (n, m, B).
-
-    Negative result (r5, v5e B=16384): rewriting the Riccati step's
-    `bmm(bt(A), ·)` patterns as leading-axis contractions
-    (Σ_k A[k,i]·B[k,j], the retired Pallas kernel's transpose-free form)
-    measured 175 ms vs 169 ms — XLA folds these transposes into the fused
-    reduce for free, and a reduce over the LEADING axis of the broadcast
-    product lays out worse than the axis-1 reduce. Keep the explicit bt().
-    """
+    """Transpose the matrix dims of (n, m, B). XLA folds these transposes
+    into the fused reduce of the following `bmm`."""
     return jnp.swapaxes(A, 0, 1)
 
 
@@ -111,9 +104,9 @@ def solve_spd_multi(A, rhs_list):
     via Gauss-Jordan row elimination on the augmented system.
 
     rhs_list: list of (n, B) or (n, m, B) arrays. Returns solutions in the
-    same shapes. Row operations act on whole (n_aug, B) slabs, which maps to
-    far fewer / wider VPU ops than a scalar-unrolled Cholesky (the batch B is
-    the lane axis). No pivoting — callers pass a regularized SPD matrix.
+    same shapes. Row operations act on whole (n_aug, B) slabs: far fewer,
+    wider ops than a scalar-unrolled Cholesky. No pivoting — callers pass a
+    regularized SPD matrix.
     """
     n = A.shape[0]
     cols = [A]
@@ -127,9 +120,8 @@ def solve_spd_multi(A, rhs_list):
         row_j = M[j] / pivot[None, :]  # (n_aug, B)
         factors = M[:, j]  # (n, B)
         M = M - factors[:, None, :] * row_j[None, :, :]
-        # row write via static-slice concat (.at[j] lowers to
-        # dynamic_update_slice, unsupported in Pallas TPU lowering);
-        # skip zero-width end slices (Mosaic rejects 0-size vectors)
+        # row write via static-slice concat instead of .at[j]
+        # (dynamic_update_slice); skip zero-width end slices
         pieces = ([M[:j]] if j > 0 else []) + [row_j[None]] + (
             [M[j + 1 :]] if j + 1 < n else []
         )
@@ -181,9 +173,9 @@ class FleetModelSpec(NamedTuple):
     # equal to E(x1)ᵀ·discretize(fj)·E(x). When a model's continuous
     # Jacobian is sparse (the quat SRB's is ~85% structural zeros), the
     # block form skips the dense (nx, nx+nu, B) builds and 13-wide
-    # contractions per knot — the backward pass is HBM-bound at fleet
-    # batch sizes, so the dropped materializations are the win (see
-    # models/srb.py quat_srb_error_discrete_jac_fleet).
+    # contractions per knot — if the backward pass is bound by memory
+    # bandwidth at fleet batch sizes, the dropped materializations are the
+    # win (see models/srb.py quat_srb_error_discrete_jac_fleet).
     edj: Optional[Callable] = None
     # Optional finer decomposition (models/srb.py SrbEdjBlocks): the
     # sequential Riccati sweep consumes the raw blocks and writes every
@@ -264,7 +256,7 @@ def _error_proj_bl(x, quat_idx, ne):
     """E(x): (nx, ne, B) = blkdiag(I_qi, G(q), I_rest), scatter-free.
 
     Built from stacked/concatenated blocks (never integer-array `.at[]`,
-    which lowers to serialized TPU scatter ops).
+    which lowers to scatter ops).
     """
     nx = x.shape[0]
     B = x.shape[-1]
@@ -349,8 +341,8 @@ class FleetSolution(NamedTuple):
 
 
 def _eye(n: int, dtype):
-    """Identity built from iota comparisons, not `jnp.eye`: Pallas kernels
-    may not close over array constants, and XLA constant-folds this form."""
+    """Identity built from iota comparisons, not `jnp.eye`; XLA
+    constant-folds this form."""
     r = jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
     c = jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
     return (r == c).astype(dtype)
@@ -415,7 +407,7 @@ def _state_expansion_structured(x, x_ref, Qd, w, qi, ne):
     E = blkdiag(I, G(q), I), lxx is block-diagonal
     [diag(Qd_p) ⊕ (G(q)ᵀdiag(Qd_q)G(q) + corr·I₃) ⊕ diag(Qd_rest)].
     The dense path built E and ran two 13-wide contractions per knot; at
-    fleet batch sizes those are pure HBM traffic (bench roofline)."""
+    fleet batch sizes those are mostly device-memory traffic."""
     dtype = x.dtype
     B = x.shape[-1]
     g = Qd * (x - x_ref)  # (nx, B)
@@ -509,9 +501,8 @@ def _structured_q_terms(blocks, Vx, Vxx, lx, lxx, lu, luu):
         Be = [[s_p/m·(I…I)],[Bφ],[s_v/m·(I…I)],[s_w·Bω]]
 
     so e.g. Aeᵀ·Vxx = [Vp; Aφφᵀ·Vφ; h·Vp+Vv; Aφωᵀ·Vφ+Vω] — 2 tiny 3-wide
-    contractions instead of a dense 12³ one. ~6× fewer flops and, the real
-    point at fleet batch sizes, ~6× fewer HBM bytes through the dominant
-    reduce_sum chain (measured 744 GB/s, pinned at the HBM roofline)."""
+    contractions instead of a dense 12³ one. ~6× fewer flops and ~6× fewer
+    device-memory bytes through the dominant reduce_sum chain."""
     h, sp, sv, sw = blocks.h, blocks.s_p, blocks.s_v, blocks.s_w
     inv_m = blocks.inv_m
     Aff, Afw, Bf, Bw = blocks.A_phi, blocks.A_pw, blocks.B_phi, blocks.Bw
@@ -587,8 +578,8 @@ def riccati_step(spec, prob, carry, x, x1, u, x_ref, u_ref, k_lam, k_cb, rho, re
 def riccati_backward(spec, prob, xs, us, lam, rho, reg, unroll: bool = False):
     """Fused expansion + Riccati sweep: the per-knot dynamics/cost expansions
     are computed INSIDE the reverse scan step, so the (N, ne, ne, B) stacks
-    never round-trip through HBM. `unroll=True` replaces the scan with a
-    Python loop (required inside the Pallas kernel)."""
+    never round-trip through device memory. `unroll=True` replaces the scan
+    with a Python loop (the FLOP-counting compile in bench.py)."""
     lxN, lxxN = terminal_expansion(spec, xs[xs.shape[0] - 1], prob)
     cbs = cb_knots(prob.cb, us.shape[0])
     if unroll:
@@ -620,14 +611,12 @@ def riccati_backward(spec, prob, xs, us, lam, rho, reg, unroll: bool = False):
 
     # The BACKWARD knot scan runs fully UNROLLED (N static, 10-30): the
     # rolled while-loop's carry double-buffering + dynamic-update-slice
-    # output stacking were measured top-10 HBM consumers at fleet batch
-    # sizes; unrolling bought 169→156 ms at B=16k (r5). Asymmetry is real
-    # and measured: unrolling the forward ROLLOUT scans the same way made
-    # the step 173 ms — their alpha-vmapped bodies are cheap and the
-    # unrolled form defeats XLA's cross-knot fusion there — so only this
-    # scan unrolls. Iteration-level scans (AL, iLQR) stay rolled: their
-    # bodies are the whole knot program; unrolling them 10× explodes
-    # compile time for no bookkeeping win.
+    # output stacking move extra bytes at fleet batch sizes. The forward
+    # ROLLOUT scans stay rolled: their alpha-vmapped bodies are cheap and
+    # an unrolled form defeats XLA's cross-knot fusion there. Iteration-
+    # level scans (AL, iLQR) stay rolled: their bodies are the whole knot
+    # program; unrolling them 10× explodes compile time for no bookkeeping
+    # win. On the H100 these choices are unmeasured.
     with jax.named_scope("riccati_backward"):
         (_, _), (Ks, ds, dV1s, dV2s, gs) = jax.lax.scan(
             step,
@@ -641,8 +630,8 @@ def riccati_backward(spec, prob, xs, us, lam, rho, reg, unroll: bool = False):
 
 def knot_expansions(spec, prob, xs, us, lam, rho):
     """All per-knot dynamics/cost expansions at once (vmapped over knots):
-    (As, Bs, lxs, lxxs, lus, luus). Used by the Pallas backend, which runs
-    only the sequential Riccati sweep in-kernel."""
+    (As, Bs, lxs, lxxs, lus, luus). The associative-scan backward pass
+    (solver/parallel_riccati.py) builds its one-step elements from them."""
     qi, ne = spec.quat_idx, spec.ne
     kN = xs.shape[0] - 1
 
@@ -685,26 +674,22 @@ def make_fleet_solver(
 
     backend: "xla" | "assoc" | "auto".
     The large-batch path is the fixture-exact XLA sweep: the mul+sum
-    contraction form lets XLA fuse the whole backward pass, and a
-    hand-written Pallas kernel for the sweep measured at PARITY (89.4 vs
-    89.7 ms full solve, v5e B=4096 N=10) across two rounds of tuning — it
-    is retired as a documented negative result (experiments/pallas_fleet.py).
-    "assoc" replaces the sequential Riccati recursion with the O(log N)
+    contraction form lets XLA fuse the whole backward pass. "assoc"
+    replaces the sequential Riccati recursion with the O(log N)
     associative-scan backward pass (solver/parallel_riccati.py) — the
     horizon-parallel variant for long horizons / small batches. "auto"
-    routes the single-robot case (B == 1, the measured 1.7x assoc win and
-    the 200 Hz latency contract) to assoc and every fleet to the
-    sequential sweep — assoc loses at B=256 (1.6x) and its different op
+    routes the single-robot case (B == 1, the 200 Hz latency contract) to
+    assoc and every fleet to the sequential sweep — assoc's different op
     order breaks bit-level fleet==single parity, so fleets stay on the
-    fixture-exact path (B is static under jit; the choice costs nothing
-    at runtime).
+    fixture-exact path (B is static under jit; the choice costs nothing at
+    runtime). Where the crossover lies on the H100 is unmeasured.
 
     ``unroll_scans=True`` fully unrolls every horizon/iteration lax.scan.
     Runtime-irrelevant (same math, bigger program); it exists for FLOP
     accounting: XLA's compiled cost_analysis counts a scan body ONCE
     regardless of trip count, so a rolled program under-counts the solve by
     ~the iteration product. bench.py compiles an unrolled twin purely to
-    read the true flops/solve (see bench _mfu notes).
+    read the true flops/solve (see bench._flops_per_solve).
     """
     qi = spec.quat_idx
     ne = spec.ne
@@ -739,14 +724,15 @@ def make_fleet_solver(
         rho0 = jnp.asarray(opts.penalty_initial, dtype)
         reg0 = jnp.full((B,), opts.reg_initial, dtype=dtype)
 
-        # Backtracking alphas 1, 1/2, ... evaluated in PARALLEL (lane-widening),
-        # not serially: the reference-style while_loop backtracker runs the
-        # fleet to the WORST scenario's try count (any straggler serializes
-        # 4096 lanes through up to 12 full rollouts). One K-wide rollout pass
-        # selects, per scenario, the first (largest) alpha passing Armijo —
-        # identical accept semantics to serial backtracking with K tries
-        # (the rollouts are vmapped, so extra alphas are lane width, not
-        # serial passes — honor the full max_linesearch budget).
+        # Backtracking alphas 1, 1/2, ... evaluated in PARALLEL (a wider
+        # batch), not serially: the reference-style while_loop backtracker
+        # runs the fleet to the WORST scenario's try count (any straggler
+        # serializes 4096 scenarios through up to 12 full rollouts). One
+        # K-wide rollout pass selects, per scenario, the first (largest)
+        # alpha passing Armijo — identical accept semantics to serial
+        # backtracking with K tries (the rollouts are vmapped, so extra
+        # alphas are batch width, not serial passes — honor the full
+        # max_linesearch budget).
         n_alpha = opts.max_linesearch
         alphas = jnp.asarray(0.5 ** np.arange(n_alpha), dtype)
 

@@ -1,8 +1,8 @@
 """Force/trajectory visualization: the `draw_force_plugin` counterpart.
 
 The reference's ``unitree_gazebo/plugin/draw_force_plugin.cc`` draws GRF
-vectors from WrenchStamped messages inside the Gazebo GUI. The TPU-native
-framework has no live GUI; the same information — per-foot ground-reaction
+vectors from WrenchStamped messages inside the Gazebo GUI. This framework
+has no live GUI; the same information — per-foot ground-reaction
 vectors along the torso trajectory — renders offline from telemetry
 (``TelemetryLogger.publish_forces`` → ``grf_vis`` JSONL channel) into a
 PNG/SVG via matplotlib (Agg backend, no display required).

@@ -6,6 +6,7 @@ import pathlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from quaternion_mpc_tpu.sim import terrain as world
 from quaternion_mpc_tpu.utils import checkpoint as ckpt
@@ -127,3 +128,24 @@ def test_profiling_timed_and_floor():
     f = jax.jit(lambda x: jnp.sum(x * 2))
     stats = profiling.timed(f, jnp.ones(64), iters=3)
     assert stats["raw_p50_s"] >= stats["p50_s"] >= 0.0
+
+
+@pytest.mark.parametrize("env_dir", [None, "outside"])
+def test_compile_cache_dir(env_dir, tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the only cache directory the
+    program configures; otherwise the cache is the fixed <repo>/.jax_cache."""
+    from quaternion_mpc_tpu.utils import compile_cache
+
+    repo_cache = pathlib.Path(__file__).resolve().parents[1] / ".jax_cache"
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = str(repo_cache)
+    else:
+        want = str(tmp_path / env_dir)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert compile_cache.enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

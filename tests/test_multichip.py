@@ -53,7 +53,7 @@ def test_fleet_step_sharded(fleet_setup):
 def test_fleet_shard_matches_single_device(fleet_setup):
     """The batch-LAST fleet solver sharded over the mesh == the same fleet
     step on one device (VERDICT r1 #1: the fast path must be the sharded
-    path). Metrics psum to fleet totals over ICI."""
+    path). Metrics psum to fleet totals across devices."""
     carry, sp, joy, B = fleet_setup
     # perturb per-scenario so shards aren't trivially identical
     vel = jnp.asarray(

@@ -113,3 +113,27 @@ def test_udp_loopback():
             break
         time.sleep(0.001)
     assert got == payload
+
+
+def test_build_remakes_after_source_change(tmp_path, monkeypatch):
+    """build() always runs make: a source newer than the library rebuilds
+    it, and an unchanged source leaves it as it is."""
+    import os
+    import shutil
+
+    for name in ("Makefile", "qmpc_runtime.cpp"):
+        shutil.copy(native._NATIVE_DIR / name, tmp_path / name)
+    lib = tmp_path / "libqmpc_runtime.so"
+    monkeypatch.setattr(native, "_NATIVE_DIR", tmp_path)
+    monkeypatch.setattr(native, "_LIB_PATH", lib)
+
+    assert native.build() == lib and lib.exists()
+    built = lib.stat().st_mtime_ns
+    native.build()
+    assert lib.stat().st_mtime_ns == built
+
+    src = tmp_path / "qmpc_runtime.cpp"
+    later = lib.stat().st_mtime + 10
+    os.utime(src, (later, later))
+    native.build()
+    assert lib.stat().st_mtime_ns > built

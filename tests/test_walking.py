@@ -141,8 +141,8 @@ def test_rti_dual_warm_tracks():
     """Dual warm starting (carrying the AL multipliers across ticks, the
     other half of the real-time-iteration scheme) buys one more iteration:
     1 AL × 2 iLQR per tick — divergent with primal-only warm start — holds
-    the trot (measured vel_err 0.041 vs 0.020 at 1×3). This is the
-    sub-millisecond bench mode (0.85 ms/tick on v5e)."""
+    the trot (measured vel_err 0.041 vs 0.020 at 1×3). This is bench.py's
+    dual-warm latency row."""
     dtype = jnp.float32
     wts = quat_mpc.weights_from_config(cfg_mod.gazebo_go1_quat_mpc(), dtype=dtype)
     opts = SolverOptions(al_iterations=1, ilqr_iterations=2, penalty_initial=10.0)
